@@ -5,8 +5,8 @@
         <lex_file> <out_dir>
 
 Writes one grammar file per query sentence: ``out_dir/grammar.<i>.{s,n}``
-(PrintResults.c:437-441).  ``--engine`` selects the TPU pipeline (default) or the
-sequential oracle; both produce byte-identical grammars.
+(PrintResults.c:437-441).  ``--engine`` selects the device pipeline (default) or
+the sequential oracle; both produce byte-identical grammars.
 """
 
 from __future__ import annotations
@@ -30,7 +30,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-l", dest="minmatchlen", type=int, default=1)
     p.add_argument("-t", dest="fingerlen", type=int, default=10)
     p.add_argument("-s", dest="timefile", default=None)
-    p.add_argument("--engine", choices=["tpu", "oracle"], default="tpu")
+    p.add_argument("--engine", choices=["device", "oracle"], default="device")
     p.add_argument("--index-dir", default=None,
                    help="persisted corpus-index dir (built on first use)")
     p.add_argument("--build-index-only", action="store_true",

@@ -41,7 +41,7 @@ class ExtractorConfig:
     fingerlen: int = 10
 
     # Work-set capacities (replace the reference's hardcoded preallocations,
-    # ComTypes.h:54-60).  The TPU pipeline builds exact-sized work arrays, so
+    # ComTypes.h:54-60).  The device pipeline builds exact-sized work arrays, so
     # these are not buffer sizes; they are sanity ceilings checked by
     # ``check_capacity`` at each stage — exceeding one raises CapacityError
     # with the stage name and count instead of silently eating host/device

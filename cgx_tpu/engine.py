@@ -22,8 +22,8 @@ import numpy as np
 from cgx_tpu.utils.batching import Pending, chunked_batch
 
 # dispatch chunk sizes for the expanded lookup kernels: their per-item device
-# temps are tiny (scalars / one MMOV window), so much larger chunks than the
-# default amortize the relay round trip without HBM pressure
+# temps are tiny (scalars / one MMOV window), so they take much larger chunks
+# than the default — fewer dispatches for the same device memory
 PCS_CHUNK = 2_097_152
 SCAN_CHUNK = 524_288
 
@@ -36,9 +36,9 @@ def _offsets(counts) -> np.ndarray:
 def materialize_items(counts):
     """Flat work-item list from per-pattern counts: (item_pat, tx) where
     ``item_pat[i]`` is item i's pattern index and ``tx[i]`` its occurrence
-    offset within that pattern.  Vectorized np.repeat/cumsum — cheap relative
-    to deriving (pattern, tx) on device (a count-prefix binary search costs
-    ~log2(D) gathered words per item at the chip's gather rate)."""
+    offset within that pattern.  Vectorized np.repeat/cumsum on the host, in
+    place of a count-prefix binary search on device (~log2(D) gathered words
+    per item)."""
     counts = np.asarray(counts, np.int64)
     item_pat = np.repeat(np.arange(len(counts), dtype=np.int64), counts)
     cum = np.cumsum(counts)
@@ -95,14 +95,11 @@ def _expanded_dispatch(disp, N, offs, chunk, parallel=True):
 class ReplicatedEngine:
     """Single-device dispatch against a fully-resident GrammarIndex.
 
-    The lookup stages use the ``*_expanded`` entry points: the work-item list
-    materializes on the HOST (np.repeat over per-pattern counts) and exactly
-    the per-item columns each kernel needs upload, query tokens pre-resolved;
-    only packed hit masks come back.  On this hardware H2D streams ~30x more
-    words/s than device gathers deliver (tools/pallas_probe.py), so 16-36
-    B/item of upload beats on-device item derivation (count-prefix binary
-    search + per-pattern field gathers, ~20 gathered words/item); D2H — the
-    slow direction through the relay — stays O(items/8)."""
+    The lookup stages use the ``*_expanded`` entry points: per-pattern tables
+    upload and the work items are derived on device from them (see
+    search.lookup._cumsum_expand); only packed hit masks come back, so D2H
+    stays O(items/8).  Extraction uploads per-item columns built on the host
+    (ROADMAP S5 re-decides that format from a trace)."""
 
     # single-device programs: orchestrators may dispatch independent kernel
     # groups from threads (first-time compiles overlap); the sharded engine

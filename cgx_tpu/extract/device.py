@@ -1,4 +1,4 @@
-"""TPU rule extraction.
+"""Device rule extraction.
 
 Vectorized transcription of the three extraction kernels:
 

@@ -11,14 +11,13 @@ Two backends produce bit-identical float32 features:
 
 * **device** (default when the index is device-resident and the batch is large):
   the probe set — T rules x 5 source words x 16 target positions — runs on the
-  chip against device-resident NEG-LOG tables (``-log10`` precomputed on the
+  device against device-resident NEG-LOG tables (``-log10`` precomputed on the
   host with numpy bits; +inf for missing entries), so ``max(prob)`` becomes
   ``min(neglog)`` — bit-identical because -log10 is monotone decreasing — and
   the reference's sequential f32 accumulation unrolls on device (pure f32
   adds in host order; XLA does not reassociate).  Only the final [T]+[T]
   float32 feature columns come back: 8 B/rule D2H instead of the 84 B/rule
-  best tables, the dominant maxlex cost at whole-test-set batches through
-  the relay.
+  best tables.
 * **host** (CPU fallback / sharded-index mode / small batches): dense
   per-direction probability matrices indexed directly when the (src, tgt) id
   space is small, batched ``np.searchsorted`` over packed int64 keys
@@ -41,7 +40,8 @@ from cgx_tpu.index.container import pack_lex_key
 TPOSW = 16   # target span width (end offset < max_rule_span)
 SRCW = 5     # max source words (MAX_rule_symbols)
 
-# below this many rules the dispatch round trip beats the host numpy pass
+# below this many rules the host numpy pass is used: the device path's
+# dispatch, upload and fetch are a fixed cost that a small batch cannot repay
 DEVICE_MIN_T = 4096
 
 
@@ -115,19 +115,19 @@ def _probe_bests_host(lex_key, lex_val1, lex_val2, src_pat, ttok, tmask,
 
 
 # ---------------------------------------------------------------------------
-# Device probe.  TPU gathers cost ~10ns per gathered WORD regardless of stride
-# (no per-lane gather hardware; see tools/pallas_probe.py), so the design goal
-# is the fewest gathered words per probe:
-#   dense mode  — per-direction [ns, nt] probability matrices resident in HBM,
-#                 one 2D gather per probe (2 words over both directions);
+# Device probe.  The probes are random gathers, so the design goal is the
+# fewest gathered words per probe:
+#   dense mode  — per-direction [ns, nt] probability matrices resident in
+#                 device memory, one 2D gather per probe (2 words over both
+#                 directions);
 #   range mode  — a dense per-src row-range table plus a binary search over the
 #                 tgt column only (2 + ~log2(max rows per src) words) when the
-#                 id-space square is too large for HBM.
+#                 id-space square exceeds DEV_DENSE_LIMIT.
 # Gathers and maxes are exact, so the float32 bests are bit-equal to the host
 # backends (first table row wins on duplicate pairs in both modes).
 # ---------------------------------------------------------------------------
 
-# max dense-matrix entries per direction on device (2 x 512 MB of HBM)
+# max dense-matrix entries per direction on device (2 x 512 MB)
 DEV_DENSE_LIMIT = 1 << 27
 
 
@@ -166,8 +166,7 @@ def _accum_batch_dense(L1, L2, tgt_str, maxscore, sp, t0, tend, g1, g11,
     non-positive entries), so ``max(prob)`` becomes ``min(neglog)`` —
     bit-identical because -log10 is monotone decreasing and np.log10 is
     monotone.  Returns the final [T] f32 feature columns: D2H shrinks from
-    (SRCW + TPOSW) x 4 = 84 B/rule (the best tables) to 8 B/rule, the
-    dominant maxlex cost at whole-test-set batch sizes through the relay."""
+    (SRCW + TPOSW) x 4 = 84 B/rule (the best tables) to 8 B/rule."""
     ttok, tmask, any_t = _probe_masks(tgt_str, t0, tend, g1, g11, g2, g21)
     ns, nt = L1.shape
     si = sp + 1                                      # [T, 5]; NULL src -> row 0
@@ -252,9 +251,9 @@ def _neglog(v: np.ndarray) -> np.ndarray:
     entries, so a zero/absent probability can never win a device min.
 
     ``-log10(1.0) = -0.0``: the host accumulator's ``0.0 + (-0.0)`` yields
-    ``+0.0``, but XLA folds the device accumulator's ``zeros + term`` to
-    ``term``, which would leak ``-0.0`` into the printed feature (a real
-    on-chip conformance failure).  Canonicalizing ``±0 -> +0`` here makes
+    ``+0.0``, but XLA may fold the device accumulator's ``zeros + term`` to
+    ``term``, which would leak ``-0.0`` into the printed feature.
+    Canonicalizing ``±0 -> +0`` here makes
     every device add bit-equal to the host's regardless of that fold
     (x + 0.0 == x + (-0.0) for every x the accumulator can hold)."""
     v = np.asarray(v, np.float32)
@@ -303,10 +302,10 @@ def _device_lex_tables(index):
 
 
 def _accum_device(index, cfg, src_pat, t0, tend, g1, g11, g2, g21):
-    """Chip probe + accumulation: uploads the [T]-column task arrays, returns
-    the FINAL [T] f32 feature columns (8 B/rule D2H; the best-table fetch was
-    84 B/rule and dominated maxlex at whole-test-set batches).  The target
-    string and neg-log lexical tables are device-resident."""
+    """Device probe + accumulation: uploads the [T]-column task arrays,
+    returns the FINAL [T] f32 feature columns (8 B/rule D2H in place of the
+    84 B/rule best tables).  The target string and neg-log lexical tables are
+    device-resident."""
     from cgx_tpu.utils.batching import chunked_batch
 
     mode, tabs = _device_lex_tables(index)

@@ -1,6 +1,6 @@
 """GrammarIndex: the device-resident corpus index.
 
-Holds the arrays every TPU stage reads (token string, suffix array, interval-LCP
+Holds the arrays every device stage reads (token string, suffix array, interval-LCP
 tree, RLP, target alignment spans, target string, lexical table) as jnp arrays,
 placed once and reused across stages — the reference re-uploads these before every
 kernel (e.g. SuffixArray.cu:1396-1412, ExtractPair.cu:3279-3282); we keep them

@@ -1,5 +1,5 @@
 """End-to-end oracle pipeline: the 9-phase flow of start() (Start.cu:489-629),
-sequential and exact.  Slow by design — the spec for the TPU pipeline."""
+sequential and exact.  Slow by design — the spec for the device pipeline."""
 
 from __future__ import annotations
 

@@ -2,7 +2,7 @@
 kernels (SuffixArray.cu pass 1/2, gap enumeration, GappyLook.cu lookups, precompute).
 
 Every function here mirrors the CUDA control flow statement-for-statement, executed
-sequentially in canonical order (DESIGN.md).  This is the spec the TPU pipeline must
+sequentially in canonical order (DESIGN.md).  This is the spec the device pipeline must
 reproduce; it is deliberately loop-heavy Python — correctness anchor, not speed.
 """
 

@@ -1,7 +1,7 @@
 """Distribution: query-data-parallel execution over a ``jax.sharding.Mesh``.
 
 The reference is single-GPU (SURVEY.md section 2.3); queries are embarrassingly
-parallel (per-query output files), so the TPU-native scaling axis is the flat
+parallel (per-query output files), so the natural scaling axis is the flat
 *work-item* axis of every device stage (query tokens for pass 1/2, pattern
 occurrences for lookups, sampled occurrences for extraction, rules for MaxLex):
 

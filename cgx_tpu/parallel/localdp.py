@@ -2,7 +2,7 @@
 
 The reference saturates its one device with every kernel launch — grid dims
 cover the whole chip (SuffixArray.cu:1374-1378, ExtractPair.cu:3361).  The
-TPU-native analog must cover the whole HOST's device set from one process:
+JAX analog must cover the whole HOST's device set from one process:
 ``LocalDPEngine`` replicates the corpus index once per local device and
 splits every device stage's flat work-item axis into contiguous per-device
 slices.  Each device runs the identical per-item kernel on its slice;

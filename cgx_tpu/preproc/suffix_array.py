@@ -12,7 +12,7 @@ correct construction matches the reference's DC3 output exactly.  We provide:
 The interval tree ``lcpleft/lcpright`` is the reference's non-standard structure
 (``SuffixArray.c:131-179``): for every canonical binary-search interval (L, R) of
 [0, n-1] with midpoint M = (L+R)//2, ``lcpleft[M]`` = LCP of suffixes SA[L..M] interval
-(min of lcp over (L, M]) and ``lcpright[M]`` likewise over (M, R].  It lets the GPU/TPU
+(min of lcp over (L, M]) and ``lcpright[M]`` likewise over (M, R].  It lets the device
 binary search skip re-comparing prefixes.
 """
 

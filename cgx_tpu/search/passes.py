@@ -1,4 +1,4 @@
-"""TPU pass-1/pass-2 suffix-array search.
+"""Device pass-1/pass-2 suffix-array search.
 
 Vectorized transcription of suffixArrayFindLwRwKernelTwoWayTDI (pass 1,
 SuffixArray.cu:402-767) and suffixArrayFindConnectionTwoWayTDI (pass 2,

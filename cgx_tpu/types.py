@@ -1,8 +1,8 @@
-"""Shared data contracts between the oracle and the TPU pipeline.
+"""Shared data contracts between the oracle and the device pipeline.
 
 These mirror the reference's structs (ComTypes.h) as NumPy arrays; see each class
 docstring for the struct provenance.  Engine-neutral: the oracle fills them with
-sequential Python, the TPU pipeline with JAX device stages.
+sequential Python, the device pipeline with JAX device stages.
 """
 
 from __future__ import annotations

@@ -1,9 +1,7 @@
 """Serialized-executable warm-open cache (utils/aot): disabled = passthrough,
 enabled = persist + reload path, any backend failure = silent fallback.
 
-The chip evidence lives in tools/aot_probe.py (deserialize+load 0.05-0.17s vs
-0.76-2.4s per program through the persistent compile cache); these tests pin
-the wrapper's correctness on the CPU backend."""
+These tests pin the wrapper's correctness on the CPU backend."""
 
 import numpy as np
 import jax.numpy as jnp

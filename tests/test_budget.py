@@ -80,6 +80,36 @@ def test_no_budget_means_no_check(monkeypatch):
     assert bd.resolve_shards("auto", 10**9, 10**9) == 0
 
 
+class _FakeDevice:
+    platform = "gpu"
+    device_kind = "fake GPU"
+
+    def __init__(self, stats):
+        self._stats = stats
+
+    def memory_stats(self):
+        return self._stats
+
+
+def test_budget_reads_bytes_limit_of_a_gpu(monkeypatch):
+    monkeypatch.delenv("CGX_DEVICE_MEM_MB", raising=False)
+    dev = _FakeDevice({"bytes_limit": 60 * 1024**3, "bytes_in_use": 0})
+    assert bd.device_budget_bytes(dev) == 60 * 1024**3
+    assert bd.resolve_shards("auto", 10**8, 10**8, device=dev) == 0
+    need = bd.replicated_footprint_bytes(4 * 10**9, 4 * 10**9)
+    assert bd.resolve_shards("auto", 4 * 10**9, 4 * 10**9, device=dev) \
+        == -(-need // int(60 * 1024**3 * bd.REF_INDEX_RATIO)) > 1
+
+
+@pytest.mark.parametrize("stats", [None, {"bytes_in_use": 0}])
+def test_budget_raises_for_a_gpu_without_stats(monkeypatch, stats):
+    """No assumed size: an accelerator that reports no bytes_limit is an
+    error, not a default."""
+    monkeypatch.delenv("CGX_DEVICE_MEM_MB", raising=False)
+    with pytest.raises(RuntimeError, match="bytes_limit"):
+        bd.device_budget_bytes(_FakeDevice(stats))
+
+
 def test_cli_budget_error_is_one_line(toy_fixture, tmp_path, monkeypatch,
                                       capsys):
     from cgx_tpu import cli

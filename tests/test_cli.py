@@ -15,7 +15,7 @@ def _args(toy_fixture, out, extra=()):
 
 
 def test_cli_tpu_engine_writes_grammars(toy_fixture, tmp_path):
-    rc = cli.main(_args(toy_fixture, tmp_path / "g", ["--engine", "tpu"]))
+    rc = cli.main(_args(toy_fixture, tmp_path / "g", ["--engine", "device"]))
     assert rc == 0
     files = sorted((tmp_path / "g").glob("grammar.*.s"))
     assert len(files) == 8

@@ -1,4 +1,4 @@
-"""North-star conformance: the TPU pipeline's grammars must be byte-identical to the
+"""North-star conformance: the device pipeline's grammars must be byte-identical to the
 sequential oracle's (BASELINE.json: byte-identical grammars on the toy corpus)."""
 
 import numpy as np
@@ -30,15 +30,14 @@ def test_pipeline_matches_oracle_byte_identical(toy_fixture, sample):
             f"query {q}: first diff at line "
             f"{next(i for i, (a, b) in enumerate(zip(lo, lt)) if a != b)}:\n"
             f"oracle: {next(a for a, b in zip(lo, lt) if a != b)}\n"
-            f"tpu:    {next(b for a, b in zip(lo, lt) if a != b)}")
+            f"device: {next(b for a, b in zip(lo, lt) if a != b)}")
 
 
 @pytest.mark.parametrize("mode", ["0", "1"])
 def test_pipeline_gapcheck_modes_match_oracle(toy_fixture, monkeypatch, mode):
     """Force BOTH gap-check policies (two-phase and fused) on the toy corpus:
-    the volume heuristic (search.lookup._fused_gapcheck) would otherwise keep
-    small fixtures on the fused path, leaving the production two-phase split
-    (big batches) untested."""
+    the default (search.lookup._fused_gapcheck) is fused, which would leave
+    the two-phase split untested."""
     monkeypatch.setenv("CGX_FUSED_GAPCHECK", mode)
     cfg = ExtractorConfig(precompute_count=30)
     args = _inputs(toy_fixture)

@@ -1,6 +1,6 @@
 """Edge-case conformance: crafted inputs where the reference semantics have sharp
 corners (empty queries, all-OOV queries, near-uint8-limit sentences, queries equal
-to full corpus sentences).  Oracle and TPU pipeline must stay byte-identical."""
+to full corpus sentences).  Oracle and device pipeline must stay byte-identical."""
 
 import numpy as np
 import pytest

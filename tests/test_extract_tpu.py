@@ -1,4 +1,4 @@
-"""TPU extraction kernels must be bit-identical to the sequential oracle."""
+"""Device extraction kernels must be bit-identical to the sequential oracle."""
 
 import copy
 import dataclasses

@@ -73,7 +73,7 @@ def test_passes_bit_equal_across_dp(world):
 def test_localdp_pipeline_byte_identical(world, monkeypatch, n_dev, gapcheck):
     """dp=2 (even) and dp=3 (uneven splits) both reproduce the single-device
     grammars exactly; the forced two-phase case keeps CI coverage on
-    LocalDPEngine.gap_check (the default policy fuses at toy item counts)."""
+    LocalDPEngine.gap_check (the default policy fuses)."""
     monkeypatch.setenv("CGX_FUSED_GAPCHECK",
                        "1" if gapcheck == "fused" else "0")
     cfg = world["cfg"]

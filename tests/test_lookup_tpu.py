@@ -1,4 +1,4 @@
-"""TPU gappy lookups must be bit-identical to the sequential oracle."""
+"""Device gappy lookups must be bit-identical to the sequential oracle."""
 
 import copy
 

@@ -1,4 +1,4 @@
-"""TPU pass-1/pass-2 must be bit-identical to the sequential oracle."""
+"""Device pass-1/pass-2 must be bit-identical to the sequential oracle."""
 
 import numpy as np
 import pytest

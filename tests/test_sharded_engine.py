@@ -61,9 +61,9 @@ def test_refinement_passes_bit_equal(world):
 
 @pytest.mark.parametrize("gapcheck", ["fused", "two-phase"])
 def test_sharded_pipeline_byte_identical(world, monkeypatch, gapcheck):
-    # "two-phase" forces the production large-volume policy so
+    # "two-phase" forces the CGX_FUSED_GAPCHECK=0 policy so
     # ShardedEngine.gap_check on the query-path anchors keeps CI coverage
-    # (the default fuses on toy-scale item counts)
+    # (the default fuses)
     monkeypatch.setenv("CGX_FUSED_GAPCHECK",
                        "1" if gapcheck == "fused" else "0")
     cfg = world["cfg"]

@@ -123,6 +123,21 @@ def write(path, lines):
         fh.write("\n".join(lines) + "\n")
 
 
+def build(out_dir: str, sentences: int = 300, queries: int = 8,
+          seed: int = 20260817) -> str:
+    rng = random.Random(seed)
+    os.makedirs(out_dir, exist_ok=True)
+    f_lines, e_lines, a_lines = make_parallel_corpus(rng, sentences)
+    lex_lines = make_lex_file(rng, f_lines, e_lines, a_lines)
+    q_lines = make_queries(rng, f_lines, queries)
+    write(os.path.join(out_dir, "corpus.f"), f_lines)
+    write(os.path.join(out_dir, "corpus.e"), e_lines)
+    write(os.path.join(out_dir, "corpus.a"), a_lines)
+    write(os.path.join(out_dir, "lex.txt"), lex_lines)
+    write(os.path.join(out_dir, "query.f"), q_lines)
+    return out_dir
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=os.path.join(os.path.dirname(__file__), "..", "tests", "fixtures", "toy"))
@@ -130,17 +145,7 @@ def main():
     ap.add_argument("--queries", type=int, default=8)
     ap.add_argument("--seed", type=int, default=20260817)
     args = ap.parse_args()
-
-    rng = random.Random(args.seed)
-    os.makedirs(args.out, exist_ok=True)
-    f_lines, e_lines, a_lines = make_parallel_corpus(rng, args.sentences)
-    lex_lines = make_lex_file(rng, f_lines, e_lines, a_lines)
-    q_lines = make_queries(rng, f_lines, args.queries)
-    write(os.path.join(args.out, "corpus.f"), f_lines)
-    write(os.path.join(args.out, "corpus.e"), e_lines)
-    write(os.path.join(args.out, "corpus.a"), a_lines)
-    write(os.path.join(args.out, "lex.txt"), lex_lines)
-    write(os.path.join(args.out, "query.f"), q_lines)
+    build(args.out, args.sentences, args.queries, args.seed)
     print(f"fixture written to {args.out}")
 
 
